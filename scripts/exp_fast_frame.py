@@ -1,10 +1,9 @@
 """Frame-time levers from the r3 SOL decomposition, measured with ATE.
 
-The decomposition (scripts/exp_sol_decomp.py, BASELINE.md r3) located the
-11.4-12.7 ms KITTI-regime frame in: ICP iterations (~1.18 ms x 3.4),
-amortized keyframe work (normals + insert under the cond), per-frame
-extract_local top_k (~1.4 ms), and the 0.8 ms scan-step floor. This script
-A/Bs the levers that attack each, WITH accuracy reported — a lever that
+The decomposition (scripts/exp_sol_decomp.py, BASELINE.md r3) split the
+KITTI-regime frame into ICP iterations, amortized keyframe work (normals +
+insert under the cond), per-frame extract_local top_k, and the scan-step
+floor. This script A/Bs the levers that attack each, WITH accuracy reported — a lever that
 moves fps but breaks ATE is a regression, not a win:
 
   base        bench.py kitti config (while_loop ICP, extract every frame)
@@ -62,7 +61,7 @@ def _cfg(hyst=0.0, max_iters=20, normal_k=8):
             method="point_to_plane", max_iters=max_iters, max_corr_dist=1.0,
             damping=1e-3, max_step_trans=1.0, max_step_rot=0.3,
             min_inliers=100, huber_delta=0.3, tol=1e-5,
-            step_scale=1.4, tol_update=0.01, nn_precision="bf16",
+            step_scale=1.4, tol_update=0.01,
         ),
         mapping=MappingConfig(
             map_capacity=131072, local_model_size=16384, map_voxel=0.2,

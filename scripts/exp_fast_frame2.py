@@ -1,8 +1,8 @@
 """Fast-frame A/B round 2 (after round 1 rejected hysteresis and k=4).
 
-Round-1 findings (BASELINE.md r3): base 88.3 fps; extract-hysteresis −7%
-(cond+carry overhead > top_k saved); normal_k=4 −24% (approx_min_k k=4
-regression); max_iters=3 +7%. Round 2 measures the surviving levers:
+Round-1 findings (BASELINE.md r3): extract-hysteresis lost (cond+carry
+overhead > top_k saved); normal_k=4 lost; max_iters=3 won. Round 2
+measures the surviving levers:
 
   it3           max_iters=3 only (round-1 winner, now without hysteresis)
   it3_kf        + keyframe_trans 2.5 / rot 0.3 (halve keyframe density ->
@@ -60,7 +60,7 @@ def _cfg(max_iters=20, tol=1e-5, tol_update=0.01, kf_trans=1.5, kf_rot=0.2,
             method="point_to_plane", max_iters=max_iters, max_corr_dist=1.0,
             damping=1e-3, max_step_trans=1.0, max_step_rot=0.3,
             min_inliers=100, huber_delta=0.3, tol=tol,
-            step_scale=1.4, tol_update=tol_update, nn_precision="bf16",
+            step_scale=1.4, tol_update=tol_update,
         ),
         mapping=MappingConfig(
             map_capacity=131072, local_model_size=16384, map_voxel=0.2,

@@ -1,8 +1,8 @@
 """Fast-frame A/B round 3: the map-op levers (after round 2 set the
-flagship at 101.5 fps).
+flagship config).
 
-The remaining budget (BASELINE.md r3 decomposition): extract_local top_k
-~1.4 ms/frame and the keyframe insert lexsort ~7.6 ms/keyframe. Variants:
+The remaining budget (BASELINE.md r3 decomposition): the per-frame
+extract_local top_k and the keyframe insert lexsort. Variants:
 
   flagship      bench.py _kitti_cfg (it6 + kf2.5/0.3 + ns4)
   x_approx      + mapping.extract_approx (approx_min_k local model)

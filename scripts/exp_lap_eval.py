@@ -11,7 +11,7 @@ VERDICT r3 items 4 & 6 in one artifact. Runs the 200-frame endurance lap
 plus the driver's literal metric: pipeline trajectory vs the golden
 "reference ICP trajectory" (ATE between the two estimates).
 
-Scale via LAP_SCALE=small (default; 1-core CPU-feasible) or full (TPU).
+Scale via LAP_SCALE=small (default; 1-core CPU-feasible) or full (GPU).
 Config = the r4-calibrated endurance settings (exp_endurance.py).
 """
 
@@ -58,13 +58,9 @@ def _cfg(backend_on: bool):
             damping=1e-3, max_step_trans=1.0, max_step_rot=0.3,
             min_inliers=50 if SMALL else 100, huber_delta=0.3, tol=1e-5,
             step_scale=1.4, tol_update=0.01,
-            nn_precision=os.environ.get("LAP_NN", "highest"),
+            nn_backend=os.environ.get("LAP_NN", "auto"),
             prior_trans_weight=0.004, prior_rot_weight=0.04,
             max_total_trans=1.5, max_total_rot=0.5,
-            # LAP_LOOP=fused: the whole lap (corners + gates + closures)
-            # through the whole-loop fused Pallas kernel — the 3D fused-path
-            # soak (the 2D adversarial soak can't reach the 3D-only kernel)
-            loop_backend=os.environ.get("LAP_LOOP", "steps"),
         ),
         mapping=(
             MappingConfig(map_capacity=32768, local_model_size=4096,

@@ -1,17 +1,15 @@
 """Full-scale lap calibration sweep (r4): the small-scale corner fix did
 not transfer to flagship scale (lap_eval: odometry ATE 18.5 m vs 3.9 at
-small scale). Two suspects, each an arm here:
+small scale). Arms:
 
 - correspondence gate relative to voxel size: corr 1.0 m is 2.9 voxels at
   small scale (0.35 m) but 5 voxels at flagship (0.2 m) — relatively
   looser, the boundary-latch drag regime.
-- NN precision: the small-scale CPU calibration ran exact f32 XLA NN; the
-  flagship runs the bf16 Pallas contraction whose SELECTION is approximate
-  on this emulator (non-conformant bf16 accumulation, nn_pallas header).
-  Near-ties at 0.2 m point spacing make selection jitter a structural
-  correspondence-noise source that corners may amplify.
+- NN backend (the Triton kernel vs XLA's chunked version; both select the
+  exact f32 nearest neighbour) and normals (exact top_k vs the oversampled
+  approx_min_k path).
 
-Each arm: 200-frame / 212 m lap, odometry-only, fused dispatch, honest
+Each arm: 200-frame / 212 m lap, odometry-only, fused dispatch, host
 readback. Reports err@125 (two corners in), max err, rotation error.
 """
 
@@ -59,15 +57,14 @@ def main() -> int:
                       "mean_pts": int(np.mean([len(s) for s in scans]))}),
           flush=True)
 
-    def run(tag, corr, precision, trust=1.5, normal_approx=True,
+    def run(tag, corr, trust=1.5, normal_approx=True,
             nn_backend="auto", normal_oversample=0, map_voxel=0.2):
         cfg = SlamConfig(
             icp=ICPConfig(
                 method="point_to_plane", max_iters=18, max_corr_dist=corr,
                 damping=1e-3, max_step_trans=1.0, max_step_rot=0.3,
                 min_inliers=100, huber_delta=0.3, tol=1e-5,
-                step_scale=1.4, tol_update=0.01, nn_precision=precision,
-                nn_backend=nn_backend,
+                step_scale=1.4, tol_update=0.01, nn_backend=nn_backend,
                 prior_trans_weight=0.004, prior_rot_weight=0.04,
                 max_total_trans=trust, max_total_rot=0.5,
             ),
@@ -106,37 +103,16 @@ def main() -> int:
         }), flush=True)
 
     only = os.environ.get("LAP_SWEEP_ONLY")
-    # CPU control (exact NN + exact normals) bounds the two-corner trace at
-    # err@125=4.8 with corr 1.0 and DIVERGES at 0.6 (rotation envelope), so
-    # the gate is settled: the TPU-only suspects are bf16 NN selection and
-    # approx_min_k normals (both exact on CPU, approximate on this chip).
+    # a CPU control (exact NN + exact normals) bounds the two-corner trace
+    # at err@125=4.8 with corr 1.0 and DIVERGES at 0.6 (rotation envelope)
     arms = {
-        "corr1.0_bf16": dict(corr=1.0, precision="bf16"),  # diverging flagship
-        "corr1.0_hi": dict(corr=1.0, precision="highest"),  # isolate NN prec
-        "corr1.0_hi_exn": dict(corr=1.0, precision="highest",
-                               normal_approx=False),  # + exact normals
-        "corr1.0_bf16_exn": dict(corr=1.0, precision="bf16",
-                                 normal_approx=False),  # isolate normals only
-        # chunked XLA NN = bitwise-exact selection (the CPU control's path):
-        # isolates Pallas-highest's residual factored-form selection jitter
-        "corr1.0_xla_exn": dict(corr=1.0, precision="highest",
-                                normal_approx=False, nn_backend="xla"),
-        # --- r5 arms ---
-        # rescore NN + oversampled-rescore normals: the exact-selection-at-
-        # bf16-cost pair — must land in the hi_exn accuracy class (12.7 m)
-        # for the flagship config flip (VERDICT r4 item 1)
-        "corr1.0_rescore_ovs": dict(corr=1.0, precision="rescore",
-                                    normal_oversample=4),
-        # isolate the normals half: oversampled-rescore normals rescore
-        # EXACT f32 values (immune to the accumulator noise that killed
-        # the NN-rescore arm) — if this bounds like hi_exn, the normals
-        # flip alone is accuracy-safe
-        "corr1.0_hi_ovs": dict(corr=1.0, precision="highest",
-                               normal_oversample=4),
-        # and the XLA-exact-NN + oversampled normals pairing (the best
-        # accuracy arm's NN with the cheap normals)
-        "corr1.0_xla_ovs": dict(corr=1.0, precision="highest",
-                                nn_backend="xla", normal_oversample=4),
+        "corr1.0": dict(corr=1.0),  # the flagship settings
+        "corr1.0_exn": dict(corr=1.0, normal_approx=False),  # exact normals
+        "corr1.0_xla_exn": dict(corr=1.0, normal_approx=False,
+                                nn_backend="xla"),
+        "corr1.0_ovs": dict(corr=1.0, normal_oversample=4),
+        "corr1.0_xla_ovs": dict(corr=1.0, nn_backend="xla",
+                                normal_oversample=4),
         # gate x voxel-ratio isolation (VERDICT r4 item 6): small scale
         # bounds at 4.6 m final with corr/voxel = 1.0/0.35 = 2.9; the
         # flagship ratio is 1.0/0.2 = 5. If the RATIO is the residual
@@ -144,10 +120,8 @@ def main() -> int:
         # toward the small-scale 2.2%-of-distance bound, and tightening
         # corr at voxel 0.2 should move the same direction (0.7 is above
         # the 0.6 rotation-envelope divergence measured on CPU).
-        "corr0.7_hi_exn": dict(corr=0.7, precision="highest",
-                               normal_approx=False),
-        "vox0.35_hi_exn": dict(corr=1.0, precision="highest",
-                               normal_approx=False, map_voxel=0.35),
+        "corr0.7_exn": dict(corr=0.7, normal_approx=False),
+        "vox0.35_exn": dict(corr=1.0, normal_approx=False, map_voxel=0.35),
     }
     for tag, kw in arms.items():
         if only and tag not in only.split(","):

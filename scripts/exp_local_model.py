@@ -1,9 +1,7 @@
 """Local-model-size A/B (r5b): the one flagship-scale NN lever not yet tried.
 
-The accuracy-first flagship (nn_precision=highest) pays 6 MXU passes on a
-16,384x16,384 distance fold per ICP iteration (~4 ms, per-op table in
-BASELINE.md) plus ~13 ms of keyframe normals over the same extracted model.
-Both scale linearly in the LOCAL MODEL size — the number of map points
+The flagship pays a 16,384x16,384 NN fold per ICP iteration plus the
+keyframe normals over the same extracted model. Both scale linearly in the LOCAL MODEL size — the number of map points
 extract_local hands to ICP — not in the map itself (131k stays put). The r4
 map-op A/B tried extract_approx and a hash insert (both rejected) but never
 a smaller extraction.

@@ -1,20 +1,20 @@
 """Speed-of-light decomposition of the KITTI-regime frame (VERDICT r2 item 2).
 
-Answers, with obs.realize-fenced measurements on the real chip:
+Answers, with host-readback-fenced measurements on the device:
   1. What is the per-scan-step floor IN CONTEXT (no-op body inside one fused
-     lax.scan dispatch — not the isolated-harness 1.18 ms number)?
+     lax.scan dispatch — not an isolated-harness number)?
   2. Is the floor per-STEP or per-OP? (body with k identical CSE-defeated
      matmuls; the marginal cost per op separates the two hypotheses — this
      is what the r2 unroll_iters paradox hinges on: unrolling removes loop
      steps but keeps the op count.)
-  3. Where do the 11.4 ms/frame go? Components measured by pipeline ablation:
-     a. full pipeline (while_loop ICP, bf16 NN)        — the headline
+  3. Where does the frame time go? Components measured by pipeline ablation:
+     a. full pipeline (while_loop ICP)                 — the headline
      b. unroll_iters=5 variant                         — loop control removed
      c. max_iters=1 (single ICP iteration)             — ICP work removed
      d. no-ICP skeleton (extract_local + insert only)  — map ops only
      e. outer lax.scan unroll=4                        — outer loop control
-  4. The speed-of-light bound: traced device kernel time (BASELINE.md r2
-     profiler table) vs what the ablation says is irreducible backend floor.
+  4. The speed-of-light bound: traced device kernel time vs what the
+     ablation says is irreducible backend floor.
 
 Writes one JSON line per measurement; summarize into BASELINE.md.
 """
@@ -115,7 +115,7 @@ def _kitti_cfg(**icp_over):
         method="point_to_plane", max_iters=20, max_corr_dist=1.0,
         damping=1e-3, max_step_trans=1.0, max_step_rot=0.3,
         min_inliers=100, huber_delta=0.3, tol=1e-5,
-        step_scale=1.4, tol_update=0.01, nn_precision="bf16",
+        step_scale=1.4, tol_update=0.01,
     )
     icp.update(icp_over)
     return SlamConfig(

@@ -1,4 +1,5 @@
-"""tpu_icp_slam — a TPU-native ICP-SLAM engine built from scratch in JAX/XLA/Pallas.
+"""tpu_icp_slam — an ICP-SLAM engine built from scratch in JAX/XLA/Pallas for
+NVIDIA GPUs (one H100, or four joined by NVLink).
 
 Capability parity target: michaelwillett/GPU-ICP-SLAM (CUDA; see SURVEY.md — the
 reference mount is empty, so parity is defined against SURVEY.md §2's inventory,
@@ -6,7 +7,7 @@ not against file:line citations).
 
 Layer map (SURVEY.md §1b):
   core/     — SE(2)/SE(3) algebra, padded point clouds       (L0)
-  kernels/  — Pallas TPU kernels + XLA fallbacks              (L1)
+  kernels/  — Triton-route Pallas NN kernel + XLA versions    (L1)
   icp/      — point-to-point / point-to-plane / projective    (L2)
   mapping/  — occupancy grid, voxel map, normals              (L3)
   slam/     — per-frame pipeline, keyframes, odometry         (L4)

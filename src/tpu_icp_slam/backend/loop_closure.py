@@ -3,8 +3,8 @@
 Scan-context-style descriptors: each keyframe scan becomes a (rings × sectors)
 polar image whose cells hold the max point height in that (range, azimuth)
 bin — rotation about z shifts the sector axis, so matching scans under yaw
-becomes a max over circular shifts of a cosine similarity. On TPU the whole
-candidate search is one einsum: (K, R·S) keyframe descriptors × (S, R·S)
+becomes a max over circular shifts of a cosine similarity. On the device the
+whole candidate search is one einsum: (K, R·S) keyframe descriptors × (S, R·S)
 shifted queries → (K, S) scores, max over shifts — no tree, no loop.
 
 Candidates are gated by keyframe separation, then verified geometrically by

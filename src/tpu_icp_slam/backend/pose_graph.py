@@ -2,11 +2,11 @@
 
 SE(3) relative-pose factors r = log(T_meas⁻¹ · X_i⁻¹ · X_j) minimized by
 damped Gauss-Newton with right-perturbation updates X ← X·exp(ξ) and Huber
-robust weights. TPU-first shape discipline: the graph is fixed-capacity —
+robust weights. Static-shape discipline: the graph is fixed-capacity —
 (K, 4, 4) poses with a validity mask and (F,) factor slots with weight 0 for
 empty slots — so the whole optimization jits as one `lax.fori_loop` whose
 body builds the (K·6, K·6) normal equations with scatter-adds of 6×6 blocks
-(dense MXU-friendly assembly; K ≤ ~1k keeps H < 150 MB) and solves one damped
+(dense assembly; K ≤ ~1k keeps H < 150 MB) and solves one damped
 Cholesky. Gauge freedom is fixed by a strong diagonal prior on pose 0.
 
 The distributed Schur-complement variant lives in backend/schur.py; this

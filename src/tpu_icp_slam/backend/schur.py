@@ -8,7 +8,7 @@ and contributes a Schur complement onto the shared *separator* poses
 One `psum` over the graph axis reduces the separator system; every host
 solves the same small reduced system (stays replicated, no broadcast) and
 back-substitutes its interior update locally. Communication per GN iteration
-is exactly one psum of (Ns·6)² + Ns·6 floats — the TPU-native equivalent of
+is exactly one psum of (Ns·6)² + Ns·6 floats — the collective equivalent of
 the reference-era MPI gather (the reference itself had no multi-device path
 at all, SURVEY.md §2a).
 

@@ -1,6 +1,6 @@
 """Fixed-capacity padded point clouds with validity masks.
 
-TPU/XLA requires static shapes: every cloud is stored as a (capacity, D) array
+XLA requires static shapes: every cloud is stored as a (capacity, D) array
 plus a (capacity,) bool mask. Invalid slots hold a large sentinel coordinate so
 brute-force nearest-neighbor kernels never pick them without needing an
 explicit mask argument (SURVEY.md §7 "static shapes everywhere").

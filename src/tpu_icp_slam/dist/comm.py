@@ -14,17 +14,15 @@ Conventions:
 - wire bytes per device for a ring all-reduce (psum) of payload P over n
   devices = 2·(n−1)/n · P (reduce-scatter + all-gather halves), the standard
   ring model the scaling-book recipe uses;
-- v5p ICI ≈ 100 GB/s/link-direction class bandwidth, DCN ≈ 25 GB/s/host
-  class — order-of-magnitude constants for the break-even estimate only.
+- compute rates and link bandwidth come from the published peaks of the
+  device kind (obs/peaks.py); an unknown kind is an error.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-ICI_BYTES_PER_S = 100e9  # per-device ICI bandwidth class (v5p, one direction)
-DCN_BYTES_PER_S = 25e9  # per-host DCN class (cross-slice)
-V5E_BF16_FLOPS = 197e12  # one v5e chip (this sandbox's device class)
+from tpu_icp_slam.obs.peaks import nn_flops, peaks_for
 
 
 def ring_allreduce_wire_bytes(payload_bytes: float, n_devices: int) -> float:
@@ -89,31 +87,29 @@ def schur_separator_count(graph, n_blocks: int) -> int:
 class ScalingModel:
     """Analytic 2-host efficiency estimate for one pipeline step.
 
-    compute_mfu: fraction of peak the step's compute actually sustains —
-    peak-rate compute times make the comm fraction look artificially large
-    (a 1464×1464 Cholesky cannot tile the MXU at 197 TFLOP/s). Callers pass
-    the measured rate: ~0.08 for the NN contraction (BASELINE.md profiler
-    trace: 0.52 ms for 8.6 GFLOP), ~0.1 for small dense factorizations.
-    Pass 1.0 to get the most pessimistic (peak-compute) bound.
+    compute_mfu: fraction of the fp32 peak the step's compute actually
+    sustains — peak-rate compute times make the comm fraction look
+    artificially large. Callers pass a measured rate; 1.0 gives the most
+    pessimistic (peak-compute) bound.
     """
 
     compute_flops: float  # per step, total across devices
     comm_payload_bytes: float  # per step, summed psum payloads
     n_devices: int
-    link_bytes_per_s: float
+    device_kind: str
     compute_mfu: float = 1.0
 
     @property
     def compute_s(self) -> float:
-        rate = self.n_devices * V5E_BF16_FLOPS * self.compute_mfu
-        return self.compute_flops / rate
+        peak = peaks_for(self.device_kind).fp32_flops
+        return self.compute_flops / (self.n_devices * peak * self.compute_mfu)
 
     @property
     def comm_s(self) -> float:
         wire = ring_allreduce_wire_bytes(
             self.comm_payload_bytes, self.n_devices
         )
-        return wire / self.link_bytes_per_s
+        return wire / peaks_for(self.device_kind).link_bytes_per_s
 
     @property
     def efficiency_bound(self) -> float:
@@ -125,23 +121,22 @@ class ScalingModel:
 
 def sharded_icp_scaling_model(
     m_points: int, n_points: int, iters: float, n_devices: int,
-    method: str = "point_to_plane", lanes: int = 16, passes: int = 1,
-    link_bytes_per_s: float = ICI_BYTES_PER_S, compute_mfu: float = 0.08,
+    device_kind: str, method: str = "point_to_plane",
+    compute_mfu: float = 0.05,
 ) -> dict:
-    """Compute-vs-ICI model for the point-sharded ICP (config 5 front-end).
+    """Compute-vs-link model for the point-sharded ICP (config 5 front-end).
 
-    Compute = the NN contraction (2·M·N·lanes·passes per iteration, the
-    dominant kernel) at the MEASURED kernel rate (compute_mfu of peak;
-    BASELINE.md trace: 0.52 ms / 8.6 GFLOP ≈ 8%); comm = one
+    Compute = the brute-force NN (obs/peaks.nn_flops per iteration, the
+    dominant kernel) at compute_mfu of the fp32 peak; comm = one
     moment/normal-equation psum per iteration. Returns the model row emitted
     by bench rung 5 (see DESIGN.md §8 for the break-even interpretation).
     """
     payload = sharded_icp_psum_payload(method)["payload_bytes_per_iteration"]
     model = ScalingModel(
-        compute_flops=2.0 * m_points * n_points * lanes * passes * iters,
+        compute_flops=nn_flops(m_points, n_points) * iters,
         comm_payload_bytes=payload * iters,
         n_devices=n_devices,
-        link_bytes_per_s=link_bytes_per_s,
+        device_kind=device_kind,
         compute_mfu=compute_mfu,
     )
     return {
@@ -160,15 +155,15 @@ def sharded_icp_scaling_model(
 
 def schur_scaling_model(
     n_separator: int, n_interior_max: int, n_factors: int, iters: int,
-    n_devices: int, link_bytes_per_s: float = DCN_BYTES_PER_S,
-    dtype_bytes: int = 4, compute_mfu: float = 0.1,
+    n_devices: int, device_kind: str, dtype_bytes: int = 4,
+    compute_mfu: float = 0.1,
 ) -> dict:
-    """Compute-vs-DCN model for the distributed Schur solve (config 5
-    backend; cross-HOST, so the slower DCN class is the honest link).
+    """Compute-vs-link model for the distributed Schur solve (config 5
+    backend).
 
     Per-block compute ≈ interior Cholesky ((Ni·6)³/3) + factor linearize
     (~O(F/B · 400 flops)) at compute_mfu of peak (small dense factorizations
-    cannot tile the MXU at peak); comm = the separator psum per iteration.
+    run far below peak); comm = the separator psum per iteration.
     """
     k = 6
     chol = ((n_interior_max * k) ** 3) / 3.0
@@ -178,7 +173,7 @@ def schur_scaling_model(
         compute_flops=(chol + linz) * n_devices * iters,
         comm_payload_bytes=payload["payload_bytes_per_iteration"] * iters,
         n_devices=n_devices,
-        link_bytes_per_s=link_bytes_per_s,
+        device_kind=device_kind,
         compute_mfu=compute_mfu,
     )
     return {

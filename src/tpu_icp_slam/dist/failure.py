@@ -3,7 +3,7 @@
 A dead peer leaves a collective HANGING, not erroring: the surviving
 process blocks inside the runtime forever (measured: the 2-process CPU
 `jax.distributed` psum never returns after the peer dies). The reference
-had no multi-device path at all; the TPU-native recovery story
+had no multi-device path at all; the recovery story here
 (SURVEY.md §5 "Failure detection") is detect-by-timeout + restart from
 checkpoint:
 

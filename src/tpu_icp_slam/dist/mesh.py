@@ -6,8 +6,9 @@ framework scales through a `jax.sharding.Mesh`: axis "dp" batches independent
 alignments (frame pairs, loop-closure verifications), axis "sp" shards the
 source-point dimension of the distance matrix (the spatial/tensor-parallel
 analogue), and pose-graph keyframe blocks partition over "dp" in the backend.
-All collectives ride XLA (psum/all_gather/reduce_scatter) over ICI/DCN —
-never NCCL/MPI.
+All collectives are XLA's (psum/all_gather/reduce_scatter), which it hands to
+NCCL on the GPU. The cards of one host are joined all to all by NVLink, so
+the mesh shape follows the algorithm, not the wiring.
 """
 
 from __future__ import annotations
@@ -37,39 +38,17 @@ def make_mesh(
 ) -> jax.sharding.Mesh:
     """Build a Mesh over the first n_devices. shape=None auto-factors.
 
-    If the default platform has fewer than n_devices, falls back to the
-    host-CPU devices (the virtual mesh from
-    --xla_force_host_platform_device_count) and raises if those are still
-    too few. Without this, asking for an 8-way mesh in an environment whose
-    default backend is a single TPU silently produced a 1-device mesh — a
-    "multi-chip" validation that validated nothing.
+    Raises when the default platform has fewer than n_devices: a mesh
+    request is never served on another platform or with fewer devices.
     """
     if devices is None:
         devices = jax.devices()
-        if n_devices is not None and len(devices) < n_devices:
-            default_platform = devices[0].platform if devices else "?"
-            n_default = len(devices)
-            try:
-                devices = jax.devices("cpu")
-            except RuntimeError:
-                pass
+        if n_devices is not None:
             if len(devices) < n_devices:
                 raise ValueError(
                     f"make_mesh: {n_devices} devices requested but only "
-                    f"{len(jax.devices())} on the default platform and "
-                    f"{len(devices)} on cpu"
+                    f"{len(devices)} on platform {devices[0].platform!r}"
                 )
-            # Never swap platforms silently: on a real pod this turns a
-            # "multi-chip TPU" request into host-CPU execution (advisor r3,
-            # same no-silent-degradation policy as multihost_init).
-            import logging
-
-            logging.getLogger(__name__).warning(
-                "make_mesh: default platform %r has %d device(s) < %d "
-                "requested; falling back to %d host-CPU devices",
-                default_platform, n_default, n_devices, len(devices),
-            )
-        if n_devices is not None:
             devices = devices[:n_devices]
     n = len(devices)
     if shape is None:
@@ -89,15 +68,15 @@ def multihost_init(coordinator: Optional[str] = None) -> None:
 
     Must run BEFORE any jax op touches a backend (initialize raises after
     backend init — and `jax.process_count()` itself initializes backends, so
-    we probe `jax.distributed.is_initialized()` instead). On a real pod each
-    host calls this first; coordinator defaults from env
-    (JAX_COORDINATOR_ADDRESS / TPU metadata auto-detection).
+    we probe `jax.distributed.is_initialized()` instead). In a multi-host run each
+    host calls this first; the coordinator comes from the argument or from
+    JAX's own variables (JAX_COORDINATOR_ADDRESS, with JAX_NUM_PROCESSES and
+    JAX_PROCESS_ID).
 
     Failure policy: an *explicitly requested* coordinator that fails to
-    connect raises — a misconfigured pod must not silently degrade to
-    single-process (that bug class costs hours on real hardware). With no
-    coordinator argument and no env configuration this is a no-op (the
-    single-process sandbox case), logged at debug level.
+    connect raises — a misconfigured cluster must not silently degrade to
+    single-process. With no coordinator argument and no such variable this
+    is a no-op (the single-process case), logged at debug level.
     """
     import logging
 
@@ -111,26 +90,14 @@ def multihost_init(coordinator: Optional[str] = None) -> None:
     if already:
         log.debug("jax.distributed already initialized; multihost_init no-op")
         return
-    # Pod indicators beyond the explicit coordinator envs: on a real TPU pod
-    # slice `jax.distributed.initialize()` auto-detects the coordinator from
-    # the platform metadata, and these markers are what that environment
-    # exports — gating ONLY on JAX_COORDINATOR_ADDRESS would leave the
-    # auto-detection path unreachable and silently boot single-process
-    # (review r2).
-    pod_markers = (
-        "JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS",
-        "MEGASCALE_COORDINATOR_ADDRESS", "TPU_WORKER_HOSTNAMES",
-        "TPU_WORKER_ID", "CLOUD_TPU_TASK_ID", "JAX_NUM_PROCESSES",
-    )
-    env_configured = any(os.environ.get(k) for k in pod_markers)
-    if coordinator is None and not env_configured:
-        log.debug("no coordinator/pod markers; staying single-process")
+    if coordinator is None and not os.environ.get("JAX_COORDINATOR_ADDRESS"):
+        log.debug("no coordinator configured; staying single-process")
         return
     try:
         if coordinator is not None:
             jax.distributed.initialize(coordinator_address=coordinator)
         else:
-            jax.distributed.initialize()  # env / platform auto-detection
+            jax.distributed.initialize()  # JAX_* environment variables
     except Exception as exc:
         # explicit request → hard failure; silent degradation is the trap
         log.error("jax.distributed.initialize failed: %s", exc)

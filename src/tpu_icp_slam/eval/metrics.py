@@ -65,8 +65,7 @@ def rpe(est_poses: np.ndarray, gt_poses: np.ndarray, delta: int = 1):
         dg = np.linalg.inv(gt[i]) @ gt[i + delta]
         e = np.linalg.inv(dg) @ de
         terrs.append(np.linalg.norm(e[:d, d]))
-        cos = np.clip((np.trace(e[:d, :d]) - (d - 2)) / 2.0, -1.0, 1.0)
-        rerrs.append(np.arccos(cos))
+        rerrs.append(rotation_angle(e[:d, :d]))
     return float(np.sqrt(np.mean(np.square(terrs)))), float(
         np.sqrt(np.mean(np.square(rerrs)))
     )
@@ -78,5 +77,18 @@ def transform_error(T_est: np.ndarray, T_gt: np.ndarray):
     T_gt = np.asarray(T_gt, dtype=np.float64)
     d = T_est.shape[-1] - 1
     E = np.linalg.inv(T_gt) @ T_est
-    cos = np.clip((np.trace(E[:d, :d]) - (d - 2)) / 2.0, -1.0, 1.0)
-    return float(np.arccos(cos)), float(np.linalg.norm(E[:d, d]))
+    return rotation_angle(E[:d, :d]), float(np.linalg.norm(E[:d, d]))
+
+
+def rotation_angle(R: np.ndarray) -> float:
+    """Angle (radians) of a 2×2 or 3×3 rotation, as atan2 of its sine and
+    cosine parts: arccos of the trace alone turns f32 rounding in the matrix
+    (~1e-7) into ~1e-3 rad near zero."""
+    d = R.shape[0]
+    if d == 2:
+        sin = 0.5 * (R[1, 0] - R[0, 1])
+    else:
+        sin = 0.5 * np.linalg.norm(
+            [R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
+    cos = (np.trace(R) - (d - 2)) / 2.0
+    return float(abs(np.arctan2(sin, cos)))

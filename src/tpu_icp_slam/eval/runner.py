@@ -1,4 +1,4 @@
-"""`cli eval`: run the TPU pipeline AND the golden fp64 CPU oracle on the
+"""`cli eval`: run the device pipeline AND the golden fp64 CPU oracle on the
 same log, report ATE/RPE of each vs ground truth and vs each other — the
 operative form of "ATE RMSE vs reference ICP trajectory" (BASELINE.json;
 the CUDA reference being unavailable, the golden oracle stands in,

@@ -2,9 +2,8 @@
 
 Per-correspondence residual r = nᵀ(p − q) with Jacobian row [nᵀ, (p×n)ᵀ]
 (translation first, matching core.se3 tangent order). The 6×6 normal
-equations H = Jᵀ diag(w) J are a masked matmul reduction — MXU-native; the
-Pallas fused version (kernels/gn_accum_pallas.py) accumulates H and g in one
-pass for large M. The solve is a tiny damped Cholesky.
+equations H = Jᵀ diag(w) J are a masked matmul reduction that XLA fuses
+with the Jacobian build. The solve is a tiny damped Cholesky.
 
 Capability required by BASELINE.json config 3; the reference had only
 point-to-point (SURVEY.md §2a R4/R5).
@@ -121,23 +120,13 @@ def gauss_newton_step(
     damping: float = 1e-6,
     max_step_trans: float = 0.0,
     max_step_rot: float = 0.0,
-    backend: str = "xla",
     degen_eps: float = 0.0,
     prior_w=None,
     xi_prior=None,
 ) -> jnp.ndarray:
-    """One damped GN update: returns dT (D+1, D+1) to left-compose onto T.
-
-    backend="pallas" (3D, f32) uses the fused single-pass accumulation kernel
-    (kernels/gn_pallas.py) — the Jacobian never materializes in HBM.
-    """
+    """One damped GN update: returns dT (D+1, D+1) to left-compose onto T."""
     d = p.shape[-1]
-    if backend == "pallas" and d == 3 and p.dtype == jnp.float32:
-        from tpu_icp_slam.kernels.gn_pallas import gn_accum_pallas
-
-        H, g = gn_accum_pallas(p, q, n, w)
-    else:
-        H, g = build_normal_equations(p, q, n, w)
+    H, g = build_normal_equations(p, q, n, w)
     xi = solve_increment(
         H, g, damping, max_step_trans, max_step_rot, degen_eps=degen_eps,
         prior_w=prior_w, xi_prior=xi_prior,

@@ -1,8 +1,8 @@
 """Point-to-point rigid solve: masked/weighted Umeyama via SVD (N5).
 
-The TPU-native replacement for the reference's reduction kernels + vendored
+The XLA replacement for the reference's reduction kernels + vendored
 3x3 SVD device code (SURVEY.md §2a R7/R8; mount empty, §0): centroids and the
-DxD cross-covariance are masked matmul reductions (MXU/VPU native), and the
+DxD cross-covariance are masked matmul reductions that XLA fuses, and the
 tiny DxD SVD runs once per ICP iteration in fp32 via jnp.linalg.svd — batched
 over leading dims when solving many pairs at once (backend verification uses
 this with vmap).

@@ -3,7 +3,7 @@
 KinectFusion-style frame-to-model association: instead of searching neighbors,
 transform each source point into the target camera, project it through the
 intrinsics, and read the correspondence off the target's vertex/normal maps.
-O(M) gathers, no distance matrix at all — the cheapest correspondence on TPU.
+O(M) gathers, no distance matrix at all — the cheapest correspondence there is.
 
 Capability required by BASELINE.json config 3 (TUM fr1/xyz); the reference
 had no RGB-D path (SURVEY.md §2a).

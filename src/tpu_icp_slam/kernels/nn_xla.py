@@ -1,15 +1,17 @@
-"""Brute-force nearest neighbor, pure-XLA fallback (SURVEY.md §2b N3 fallback).
+"""Brute-force nearest neighbor in plain XLA (SURVEY.md §2b N3).
 
-The TPU-native answer to the reference's NN CUDA kernels (brute-force
+The plain-XLA answer to the reference's NN CUDA kernels (brute-force
 `kernNearestNeighbor` and the KD-tree traversal; SURVEY.md §2a R5/R6 — mount
 empty, §0): instead of pointer-chasing a tree, compute the (chunked) dense
-distance matrix ‖a‖² + ‖b‖² − 2·A·Bᵀ on the MXU and argmin it. Padded slots
-carry the PAD_COORD sentinel so they never win the argmin against any real
-point — no mask plumbing into the hot loop.
+distance matrix ‖a‖² + ‖b‖² − 2·A·Bᵀ as a matmul and argmin it. Padded
+slots carry the PAD_COORD sentinel so they never win the argmin against any
+real point — no mask plumbing into the hot loop.
 
-This fallback bounds memory by chunking the source axis with lax.map; the
-Pallas kernel (nn_pallas.py) is the production path that keeps the running
-argmin in VMEM scratch instead of materializing chunks in HBM.
+This version bounds memory by chunking the source axis with lax.map: each
+step writes a (chunk, N) f32 distance block to device memory and reads it
+back. It is the CPU path and the reference the Pallas kernel (nn_pallas.py)
+is checked against; the kernel keeps the running argmin in registers and
+never writes the distance matrix.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ def nn_bruteforce_xla(
 
     def one_chunk(a):  # a: (chunk, D)
         a_sq = jnp.sum(a * a, axis=-1)  # (chunk,)
-        # (chunk, N) distance matrix tile; the matmul is the MXU work
+        # (chunk, N) distance matrix tile; the cross term is one matmul
         g = jnp.dot(a, dst.T, precision=precision)
         d = a_sq[:, None] + dst_sq[None, :] - 2.0 * g
         idx = jnp.argmin(d, axis=1).astype(jnp.int32)
@@ -66,15 +68,12 @@ def knn_bruteforce_xla(
     """k nearest dst indices per src point: (M, k) idx, (M, k) dist_sq.
 
     Used by normal estimation on unorganized clouds (SURVEY.md §2b N8).
-    approx=True uses `lax.approx_min_k` (the TPU-optimized partial-reduce
-    top-k) — exact `lax.top_k` is the dominant cost of the keyframe normals
-    path (r2 op-cost profile), but plain approx selection at k diverged the
-    flagship lap (BASELINE.md r4 sweep). oversample > 1 (with approx) is
-    the middle path: fetch k × oversample approximate candidates, then take
-    the exact top-k among them — the candidate VALUES are exact f32, so the
-    rescore costs a tiny (M, k·oversample) top_k and the effective recall
-    of the true top-k approaches 1 (prefilter + rescore, same design as
-    nn_pallas rescore mode).
+    approx=True uses `lax.approx_min_k` (a partial-reduce top-k that is
+    approximate on some accelerators and exact on the CPU and the GPU).
+    oversample > 1 (with approx) fetches k × oversample approximate
+    candidates, then takes the exact top-k among them — the candidate
+    VALUES are exact f32, so the rescore costs a tiny (M, k·oversample)
+    top_k and the effective recall of the true top-k approaches 1.
     """
     m = src.shape[0]
     n = dst.shape[0]

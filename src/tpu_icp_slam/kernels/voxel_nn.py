@@ -1,17 +1,17 @@
 """Voxel-bucket nearest neighbor (SURVEY.md §2b N4) — the KD-tree's role.
 
 The reference accelerated NN with a GPU KD-tree (SURVEY.md §2a R6; mount
-empty, §0). Pointer-chasing trees are hostile to the TPU; the idiomatic
-replacement is a *hash-grid bucket* search, the same structure modern lidar
+empty, §0). Pointer-chasing trees serialize on divergent traversal; the
+static-shape replacement is a *hash-grid bucket* search, the same structure modern lidar
 odometry uses on GPU (KISS-ICP-style): quantize target points to voxels,
 hash voxel ids into a power-of-two table of fixed-size buckets (one sort +
 one scatter — all XLA), then answer each query from the 27 neighbor buckets
-(one gather + a tiny dense distance block — VPU work, no MXU needed because
+(one gather + a tiny dense distance block — elementwise work, because
 candidates per query are O(100), not O(N)).
 
 Complexity per ICP iteration: O(M · 27 B) instead of O(M · N) — at KITTI
 scale (N ≈ 64k map points) that's ~30× less arithmetic than the brute-force
-tile kernel, trading MXU matmuls for gathers.
+kernel, trading arithmetic for gathers.
 
 Approximation contract (callers rely on this, mirroring the gated ICP loop):
 - exact whenever the true NN lies within one voxel ring (always true when the

@@ -1,6 +1,6 @@
 """2D log-odds occupancy grid (SURVEY.md §2b N10).
 
-The TPU-native equivalent of the reference's occupancy-grid CUDA kernel
+The vectorized equivalent of the reference's occupancy-grid CUDA kernel
 (SURVEY.md §2a R9; mount empty, §0). Design: instead of per-thread Bresenham
 ray traversal (divergent, scatter-heavy), each beam contributes K evenly
 spaced free-space samples along the ray plus its endpoint hit — everything is
@@ -101,32 +101,16 @@ def to_probability(grid: OccupancyGrid2D) -> jnp.ndarray:
 
 def render_png(grid: OccupancyGrid2D, path: str, trajectory=None) -> None:
     """Host-side artifact render — the headless stand-in for the reference's
-    GL window (SURVEY.md §2c, R2 row)."""
-    import matplotlib
-
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
+    GL window (SURVEY.md §2c, R2 row): free cells white, occupied black,
+    trajectory red; one pixel per cell."""
     import numpy as np
 
-    p = np.asarray(to_probability(grid))
-    fig, ax = plt.subplots(figsize=(8, 8))
-    res = float(grid.resolution)
-    ox, oy = (float(x) for x in np.asarray(grid.origin))
-    h, w = p.shape
-    ax.imshow(
-        1.0 - p,
-        cmap="gray",
-        origin="lower",
-        extent=(ox, ox + w * res, oy, oy + h * res),
-        vmin=0.0,
-        vmax=1.0,
-    )
+    from tpu_icp_slam.obs.png import draw_path, write_png
+
+    p = np.asarray(to_probability(grid))  # [row = y, col = x]
+    gray = (255.0 * (1.0 - p)).astype(np.uint8)[::-1]  # y up
+    img = np.repeat(gray[:, :, None], 3, axis=2)
     if trajectory is not None:
-        traj = np.asarray(trajectory)
-        ax.plot(traj[:, 0], traj[:, 1], "r-", linewidth=1.0, label="trajectory")
-        ax.legend(loc="upper right")
-    ax.set_xlabel("x [m]")
-    ax.set_ylabel("y [m]")
-    fig.tight_layout()
-    fig.savefig(path, dpi=120)
-    plt.close(fig)
+        draw_path(img, np.asarray(trajectory, np.float64)[:, :2],
+                  np.asarray(grid.origin, np.float64), float(grid.resolution))
+    write_png(path, img)

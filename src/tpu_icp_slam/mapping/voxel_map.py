@@ -1,6 +1,6 @@
 """Fixed-capacity voxel-deduplicated 3D map (SURVEY.md §2b N11).
 
-The scan-to-map model of BASELINE.json config 4. TPU-first design: the map is
+The scan-to-map model of BASELINE.json config 4. Static-shape design: the map is
 a static-shape point store (capacity C) with a validity mask; insertion is a
 *sort-based* voxel dedup — concatenate existing + new points, lexsort by
 quantized voxel coordinates (stable, existing points first), keep the first
@@ -216,8 +216,8 @@ def extract_local(vm: VoxelMap, center: jnp.ndarray, size: int,
     approx=True selects via `lax.approx_min_k` (recall_target 0.95): the local
     model drops ~5% of its true nearest points, which thins its density
     imperceptibly (the map is voxel-dense at `map_voxel` spacing) while
-    skipping the exact top_k's full sort network — the per-frame extract
-    was 1.4 ms of the 10 ms flagship frame (r3 SOL decomposition).
+    skipping the exact top_k's full sort network (the per-frame extract is
+    a visible share of the frame, r3 SOL decomposition).
     r_cover stays correct: it is the max distance of the SELECTED set.
     """
     diff = vm.points - center[None, :]
@@ -256,26 +256,30 @@ def count(vm: VoxelMap) -> jnp.ndarray:
     return jnp.sum(vm.mask.astype(jnp.int32))
 
 
-def render_png(vm: VoxelMap, path: str, trajectory=None) -> None:
-    """Top-down map render (height-colored) — the headless stand-in for the
-    reference's GL point view (SURVEY.md §2c, R2 row), 3D edition."""
-    import matplotlib
-
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
+def render_png(vm: VoxelMap, path: str, trajectory=None,
+               size: int = 1200) -> None:
+    """Top-down map render (height-colored, trajectory red) — the headless
+    stand-in for the reference's GL point view (SURVEY.md §2c, R2 row), 3D
+    edition."""
     import numpy as np
 
-    pts = np.asarray(vm.points)[np.asarray(vm.mask)]
-    fig, ax = plt.subplots(figsize=(10, 10))
-    if len(pts):
-        ax.scatter(pts[:, 0], pts[:, 1], c=pts[:, 2], s=0.5, cmap="viridis",
-                   rasterized=True)
-    if trajectory is not None:
-        t = np.asarray(trajectory)
-        ax.plot(t[:, 0], t[:, 1], "r-", linewidth=1.2, label="trajectory")
-        ax.legend(loc="upper right")
-    ax.set_aspect("equal")
-    ax.set_xlabel("x [m]")
-    ax.set_ylabel("y [m]")
-    fig.savefig(path, dpi=120, bbox_inches="tight")
-    plt.close(fig)
+    from tpu_icp_slam.obs.png import draw_path, plot, write_png
+
+    pts = np.asarray(vm.points, np.float64)[np.asarray(vm.mask)]
+    traj = (np.zeros((0, 2)) if trajectory is None
+            else np.asarray(trajectory, np.float64)[:, :2])
+    xy = np.concatenate([pts[:, :2], traj]) if len(pts) else traj
+    img = np.full((size, size, 3), 255, np.uint8)
+    if len(xy):
+        lo, hi = xy.min(0) - 1.0, xy.max(0) + 1.0
+        res = float(max(hi - lo)) / size
+        if len(pts):
+            z = pts[:, 2]
+            t = (z - z.min()) / max(float(np.ptp(z)), 1e-6)
+            rgb = np.stack([60 + 190 * t, 40 + 170 * t, 140 - 100 * t],
+                           axis=1).astype(np.uint8)  # blue (low) → yellow
+            order = np.argsort(z)  # higher points drawn last
+            plot(img, pts[order, :2], lo, res, rgb[order])
+        draw_path(img, traj, lo, res)
+    write_png(path, img)
+

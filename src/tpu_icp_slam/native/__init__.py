@@ -1,18 +1,21 @@
 """Native host-side preprocessing tier (C, ctypes-bound).
 
 The reference's native split: CUDA for device compute, C++ for the host
-runtime (parsing, preprocessing, the frame loop) — SURVEY.md §1a. The TPU
-port of that split: Pallas/XLA for device compute, and this small C library
-for the genuinely hot host-side ops (per-scan voxel downsampling, polar→
-Cartesian conversion). Compiled on first use with the system compiler into
-the package directory; every entry point falls back to the NumPy
-implementation when the toolchain or the .so is unavailable, so the package
-stays pure-Python-functional.
+runtime (parsing, preprocessing, the frame loop) — SURVEY.md §1a. Here:
+Pallas/XLA for device compute, and this small C library for the genuinely
+hot host-side ops (per-scan voxel downsampling, polar→Cartesian
+conversion). Built on first use with the system compiler into the package
+directory, under a name that carries a hash of `voxel.c` and the platform,
+so a binary built from other source or on another kind of machine is never
+loaded. Every entry point falls back to the NumPy implementation when the
+toolchain or the .so is unavailable, so the package stays
+pure-Python-functional.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import sysconfig
@@ -22,21 +25,29 @@ from typing import Optional
 import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-_SO = os.path.join(_HERE, "_voxel_native.so")
 _SRC = os.path.join(_HERE, "voxel.c")
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
 
 
-def _build() -> Optional[str]:
+def library_path() -> str:
+    """Where the library built from the current voxel.c lives."""
+    with open(_SRC, "rb") as fh:
+        h = hashlib.sha256(fh.read() + sysconfig.get_platform().encode())
+    return os.path.join(_HERE, f"_voxel_native-{h.hexdigest()[:16]}.so")
+
+
+def _build(path: str) -> Optional[str]:
     cc = os.environ.get("CC", "cc")
-    cmd = [cc, "-O3", "-shared", "-fPIC", "-o", _SO, _SRC, "-lm"]
+    tmp = f"{path}.{os.getpid()}.tmp"  # concurrent builders never collide
+    cmd = [cc, "-O3", "-shared", "-fPIC", "-o", tmp, _SRC, "-lm"]
     try:
         subprocess.run(
             cmd, check=True, capture_output=True, timeout=120, cwd=_HERE
         )
-        return _SO
+        os.replace(tmp, path)
+        return path
     except Exception:
         return None
 
@@ -49,7 +60,9 @@ def _load() -> Optional[ctypes.CDLL]:
         _tried = True
         if os.environ.get("TPU_ICP_SLAM_NO_NATIVE") == "1":
             return None
-        path = _SO if os.path.exists(_SO) else _build()
+        path = library_path()
+        if not os.path.exists(path):
+            path = _build(path)
         if path is None:
             return None
         try:

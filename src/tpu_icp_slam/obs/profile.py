@@ -1,7 +1,7 @@
 """Profiler integration (SURVEY.md §5 "Tracing/profiling", §2b N20).
 
 The reference instrumented with CUDA events + wall timers for its README
-charts (SURVEY.md §2a R10; mount empty, §0). The TPU-native equivalents:
+charts (SURVEY.md §2a R10; mount empty, §0). The JAX equivalents:
 
 - `trace(dir)`: context manager around `jax.profiler.trace` — captures an XLA
   trace viewable in TensorBoard/Perfetto (per-kernel device timelines, HLO

@@ -9,7 +9,7 @@ the occupancy-grid fold. The host only uploads the next scan.
 Two execution modes (SURVEY.md §3b):
 - streaming: python loop, one device dispatch per frame (a real sensor feed);
 - fused: the whole log is a single `lax.scan` over a preloaded (F, C, D)
-  array — one dispatch for the entire trajectory, the TPU-idiomatic shape
+  array — one dispatch for the entire trajectory, the accelerator-idiomatic shape
   for benchmarking and batch reprocessing.
 """
 

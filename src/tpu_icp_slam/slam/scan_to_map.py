@@ -28,12 +28,7 @@ import jax.numpy as jnp
 from tpu_icp_slam.config import SlamConfig
 from tpu_icp_slam.core import se3
 from tpu_icp_slam.core.pointcloud import PointCloud
-from tpu_icp_slam.icp.loop import (
-    ICPResult,
-    _nn_correspondence,
-    align_with_correspondence,
-)
-from tpu_icp_slam.kernels.icp_fused_pallas import icp_fused_pallas
+from tpu_icp_slam.icp.loop import _nn_correspondence, align_with_correspondence
 from tpu_icp_slam.mapping import voxel_map
 from tpu_icp_slam.mapping.normals import normals_knn
 
@@ -49,8 +44,8 @@ class MapOdomState:
     n_keyframes: jnp.ndarray  # () int32
     # carried local model (world frame) for extract hysteresis: re-extracted
     # only when the sensor moved > cfg.mapping.extract_hysteresis from
-    # extract_center or the map changed (need_extract) — r3 SOL decomp
-    # measured the every-frame top_k at ~1.4 ms of the ~12 ms frame
+    # extract_center or the map changed (need_extract) — saves the
+    # every-frame top_k (r3 SOL decomposition)
     loc_pts: jnp.ndarray  # (L, 3)
     loc_nrm: jnp.ndarray  # (L, 3)
     loc_msk: jnp.ndarray  # (L,) bool
@@ -193,48 +188,18 @@ def _step(state: MapOdomState, points, mask, *, cfg: SlamConfig):
     # stale_off: with hysteresis the model is centered up to that far from
     # the sensor, so the guaranteed-coverage radius shrinks by it
     r_gate = jnp.maximum(r_cover - stale_off - cfg.icp.max_corr_dist, 0.0)
-    if (cfg.icp.loop_backend == "fused"
-            and cfg.icp.method == "point_to_plane"
-            and cfg.icp.degen_eps == 0.0  # no 6x6 eigensolver in-kernel
-            and cfg.icp.corr_range_rate == 0.0):  # no per-point gate in-kernel
-        # whole-loop fused Pallas ICP: one kernel launch per align — removes
-        # the per-while_loop-iteration backend control floor (BASELINE.md r3
-        # SOL decomposition: ~0.55 ms/iteration of non-kernel time)
-        ic = cfg.icp
-        T, rmse, iters, n_inl, conv = icp_fused_pallas(
-            points, mask, loc_local, nrm_local, loc_msk,
-            init_T=None, r_gate=r_gate,
-            max_iters=ic.max_iters, tol=ic.tol, tol_update=ic.tol_update,
-            max_corr_dist=ic.max_corr_dist, huber_delta=ic.huber_delta,
-            damping=ic.damping, step_scale=ic.step_scale,
-            max_step_trans=ic.max_step_trans, max_step_rot=ic.max_step_rot,
-            min_inliers=ic.min_inliers,
-            # the fused kernel has no shortlist/rescore path (in-kernel
-            # running argmin only): "rescore" maps to exact "highest" there
-            precision=("bf16" if ic.nn_precision == "bf16" else "highest"),
-            tile_m=ic.nn_tile_m or 1024, tile_n=ic.nn_tile_n or 2048,
-            prior_trans_weight=ic.prior_trans_weight,
-            prior_rot_weight=ic.prior_rot_weight,
-            max_total_trans=ic.max_total_trans,
-            max_total_rot=ic.max_total_rot,
-        )
-        res = ICPResult(
-            T=T, rmse=rmse, iters=iters, n_inliers=n_inl, converged=conv
-        )
-    else:
-        nn_corr = _nn_correspondence(cfg.icp, dst)
+    nn_corr = _nn_correspondence(cfg.icp, dst)
 
-        def corr(cur_pts):
-            q, n, gate, d2 = nn_corr(cur_pts)
-            in_cover = jnp.sum(cur_pts * cur_pts, axis=-1) <= r_gate * r_gate
-            return q, n, gate * in_cover.astype(gate.dtype), d2
+    def corr(cur_pts):
+        q, n, gate, d2 = nn_corr(cur_pts)
+        in_cover = jnp.sum(cur_pts * cur_pts, axis=-1) <= r_gate * r_gate
+        return q, n, gate * in_cover.astype(gate.dtype), d2
 
-        res = align_with_correspondence(src, corr, None, cfg.icp)
+    res = align_with_correspondence(src, corr, None, cfg.icp)
     pose = init @ res.T  # world pose = prediction ∘ sensor-frame correction
     T_rel = se3.inverse(state.pose) @ pose
 
-    # trust-region binding flag (post-hoc, backend-agnostic — works for the
-    # steps loop AND the fused kernel): the align runs in the predicted
+    # trust-region binding flag (post-hoc): the align runs in the predicted
     # sensor frame with identity init, so ‖log(res.T)‖ sitting ON the
     # max_total_trans/rot ball means the projection clamped the correction
     # — the solver wanted to go further. Endurance forensics (BASELINE.md

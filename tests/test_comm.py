@@ -4,6 +4,8 @@ import numpy as np
 
 from tpu_icp_slam.dist import comm
 
+H100 = "NVIDIA H100 80GB HBM3"
+
 
 def test_ring_allreduce_wire_bytes():
     assert comm.ring_allreduce_wire_bytes(100.0, 1) == 0.0
@@ -35,7 +37,7 @@ def test_kitti_regime_frontend_is_compute_dominated():
     16k×16k regime is compute-dominated by orders of magnitude."""
     row = comm.sharded_icp_scaling_model(
         m_points=16384, n_points=16384, iters=3.4, n_devices=4,
-        method="point_to_plane",
+        device_kind=H100, method="point_to_plane",
     )
     assert row["efficiency_bound"] > 0.999, row
     assert row["compute_s_at_peak"] > 100 * row["comm_s"], row
@@ -46,16 +48,17 @@ def test_toy_schur_is_comm_dominated():
     honest shape of the accounting, not a flattering one)."""
     row = comm.schur_scaling_model(
         n_separator=16, n_interior_max=8, n_factors=64, iters=2, n_devices=8,
+        device_kind=H100,
     )
     assert row["efficiency_bound"] < 0.5, row
 
 
 def test_kitti_scale_schur_bound_high():
     """At 512 keyframes / 2 blocks the interior Cholesky dwarfs the
-    separator psum even over DCN (DESIGN.md §8 break-even)."""
+    separator psum over NVLink (DESIGN.md §8 break-even)."""
     row = comm.schur_scaling_model(
         n_separator=24, n_interior_max=244, n_factors=600, iters=10,
-        n_devices=2,
+        n_devices=2, device_kind=H100,
     )
     assert row["efficiency_bound"] > 0.9, row
 

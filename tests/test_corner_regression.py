@@ -9,7 +9,7 @@ poisons the map). The r4 fix pair — max_corr_dist=1.0 + the total-
 correction trust region (icp.max_total_trans/rot) — was calibrated on the
 small-scale 200-frame lap (BASELINE.md r4 table). This test pins that
 calibration in CI: a refactor that silently re-breaks corners must fail
-here, not in the next TPU endurance run.
+here, not in the next endurance run on the card.
 
 Runs the first 131 frames of the lap (through the first two corners,
 ~2 x 45 s on the 1-core CPU runner). Thresholds carry ~2x margin over the

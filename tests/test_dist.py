@@ -50,32 +50,26 @@ def test_mesh_factoring():
     assert m1.devices.shape == (8,)
 
 
-def test_make_mesh_cpu_fallback_warns(monkeypatch, caplog):
-    """Default platform too small -> host-CPU fallback, LOUDLY (VERDICT r3
-    weak 6 / advisor r3: the silent swap turned 'multi-chip TPU' requests
-    into quiet CPU meshes). Simulate a single-chip default platform."""
-    import logging
-
+def test_make_mesh_cpu_fallback_warns(monkeypatch):
+    """Default platform too small -> ValueError naming the platform; the
+    request is never served on the host CPU instead. Simulate a one-card
+    default platform."""
     real_devices = jax.devices
     cpu = real_devices("cpu")
 
     def fake(platform=None):
         if platform is None:
-            return cpu[:1]  # pretend the default backend is one chip
+            return cpu[:1]  # pretend the default backend is one card
         return real_devices(platform)
 
     monkeypatch.setattr(jax, "devices", fake)
-    with caplog.at_level(logging.WARNING, logger="tpu_icp_slam.dist.mesh"):
-        m = make_mesh(8, axes=("dp",))
-    assert m.devices.shape == (8,)
-    assert any(
-        "falling back" in r.getMessage() for r in caplog.records
-    ), "CPU fallback must emit a warning naming both platforms"
+    with pytest.raises(ValueError, match="requested but only 1 on platform"):
+        make_mesh(8, axes=("dp",))
 
 
 def test_make_mesh_raises_when_cpu_also_too_few():
-    """Neither the default platform nor the CPU fallback has enough devices
-    -> hard ValueError, never a silently smaller mesh."""
+    """More devices than exist -> hard ValueError, never a silently smaller
+    mesh."""
     with pytest.raises(ValueError, match="requested but only"):
         make_mesh(1024, axes=("dp",))
 
@@ -110,10 +104,10 @@ def test_sharded_matches_single_device(mesh):
 def test_sharded_pallas_matches_single_and_xla(mesh):
     """Sharded-Pallas == single-device-Pallas == sharded-XLA (f32 tol).
 
-    Pallas-inside-shard_map is exactly where Mosaic/SPMD composition breaks;
-    this certifies the distributed path for the kernels the perf claim rides
-    on, not just the XLA fallback (VERDICT r1 item 1). On the CPU mesh the
-    kernels run in interpret mode — same program structure, same shapes.
+    Pallas inside shard_map is where kernel/SPMD composition can break;
+    this certifies the distributed path for the NN kernel, not just the XLA
+    version (VERDICT r1 item 1). On the CPU mesh the kernel runs in
+    interpret mode — same program structure, same shapes.
     """
     import dataclasses
 
@@ -134,35 +128,6 @@ def test_sharded_pallas_matches_single_and_xla(mesh):
         np.testing.assert_allclose(
             np.asarray(res_p.T)[b], np.asarray(res_x.T)[b], rtol=1e-4, atol=1e-5
         )
-
-
-def test_sharded_point_to_plane_pallas_gn(mesh):
-    """Fused Pallas H/g accumulation per shard + psum == XLA normal eqs."""
-    import dataclasses
-
-    cfg_p = ICPConfig(
-        method="point_to_plane", max_iters=10, nn_backend="pallas",
-        gn_backend="pallas", damping=1e-6,
-    )
-    cfg_x = dataclasses.replace(cfg_p, nn_backend="xla", gn_backend="xla")
-    rng = np.random.default_rng(7)
-    src3 = synthetic.surface_cloud(505, rng)
-    T_gt = synthetic.rigid_transform(3, rng, rot_scale=0.05, trans_scale=0.1)
-    dst3 = src3 @ T_gt[:3, :3].T + T_gt[:3, 3]
-    from tpu_icp_slam.mapping.normals import normals_knn
-
-    cl_d = pc.make(dst3, capacity=512, dtype=jnp.float32)
-    nrm = normals_knn(cl_d.points, cl_d.mask, k=12)
-    cl_s = pc.make(src3, capacity=512, dtype=jnp.float32)
-    args = (cl_s.points[None], cl_s.mask[None], cl_d.points[None],
-            jnp.asarray(nrm)[None])
-    res_p = ShardedAligner(mesh=mesh, cfg=cfg_p)(*args)
-    res_x = ShardedAligner(mesh=mesh, cfg=cfg_x)(*args)
-    err = np.abs(np.asarray(res_p.T)[0] - T_gt).max()
-    assert err < 5e-3, err
-    np.testing.assert_allclose(
-        np.asarray(res_p.T)[0], np.asarray(res_x.T)[0], rtol=1e-3, atol=1e-4
-    )
 
 
 def test_sharded_point_to_plane(mesh):
@@ -189,50 +154,3 @@ def test_sharded_point_to_plane(mesh):
     )
     err = np.abs(np.asarray(res.T)[0] - T_gt).max()
     assert err < 5e-3, err
-
-
-def test_fused_icp_kernel_under_shard_map(mesh):
-    """Whole-loop fused Pallas ICP (icp_fused_pallas) inside shard_map ==
-    the same kernel called per-problem on one device.
-
-    The fused kernel is sequence-parallel in the multi-chip story (each
-    device runs whole aligns against its own local model — it keeps model
-    + state in VMEM, so points are never sharded). This certifies the
-    Mosaic/SPMD composition for the r3 flagship loop backend the same way
-    test_sharded_pallas_matches_single_and_xla does for the NN kernel.
-    """
-    from jax.sharding import PartitionSpec as P
-
-    from tpu_icp_slam.kernels.icp_fused_pallas import icp_fused_pallas
-    from tpu_icp_slam.mapping.normals import normals_knn
-
-    kw = dict(max_iters=10, tol=1e-6, tol_update=0.0, max_corr_dist=1.5,
-              huber_delta=0.3, damping=1e-3, step_scale=1.0,
-              max_step_trans=1.0, max_step_rot=0.3, min_inliers=10,
-              precision="highest", tile_m=256, tile_n=256)
-
-    n = 512
-    src, msk, dst, _ = _pair_batch(2, n, dtype=jnp.float32)
-    nrm = jnp.stack([
-        normals_knn(dst[b], jnp.ones(n, bool), k=8) for b in range(2)
-    ])
-    dmask = jnp.ones((2, n), bool)
-
-    def per_seq(s, sm, d, dn, dm):
-        T, rmse, iters, n_inl, conv = icp_fused_pallas(
-            s[0], sm[0], d[0], dn[0], dm[0], init_T=None, r_gate=1e9, **kw)
-        return T[None]
-
-    run = jax.jit(jax.shard_map(
-        per_seq, mesh=mesh,
-        in_specs=(P("dp"),) * 5, out_specs=P("dp"), check_vma=False,
-    ))
-    sharded = run(src, msk, dst, nrm, dmask)
-
-    for b in range(2):
-        T_ref, *_ = icp_fused_pallas(
-            src[b], msk[b], dst[b], nrm[b], dmask[b],
-            init_T=None, r_gate=1e9, **kw)
-        np.testing.assert_allclose(
-            np.asarray(sharded)[b], np.asarray(T_ref), rtol=1e-5, atol=1e-5
-        )

@@ -61,7 +61,7 @@ def test_golden_point_to_plane():
 
 def test_golden_odometry_on_sim_2d_log():
     # Scan-to-scan point-to-point odometry drifts ~0.5-1% in a corridor world
-    # (longitudinal near-degeneracy); this bounds the drift, while TPU-vs-golden
+    # (longitudinal near-degeneracy); this bounds the drift, while pipeline-vs-golden
     # *agreement* is the tight accuracy check (see pipeline tests).
     log = synthetic.lidar2d_log(n_frames=60, n_beams=360, seed=0, noise=0.002)
     scans = [

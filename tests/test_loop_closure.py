@@ -104,8 +104,8 @@ def _loop_fixture(cfg):
 
 
 def test_verify_keyframe_candidates_strided_lean_yaws():
-    """The r5 backend cost levers (BASELINE.md r4: 901 ms/frame amortized
-    backend wall): verification at stride 2 with a 4-yaw basket must still
+    """The r5 backend cost levers (BASELINE.md r4 backend wall):
+    verification at stride 2 with a 4-yaw basket must still
     accept the true revisit with an accurate transform."""
     cfg = BackendConfig(
         enabled=True, min_loop_separation=12, candidate_topk=3,

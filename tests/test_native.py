@@ -1,5 +1,7 @@
 """Native C preprocessing tier vs the NumPy reference implementations."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -51,3 +53,15 @@ def test_downsample_fallback_consistency():
     b = _numpy_downsample(pts, 0.4)
     np.testing.assert_allclose(a, b)
     _ = os
+
+
+def test_library_path_tracks_source_and_platform(tmp_path, monkeypatch):
+    """The binary's name carries a hash of voxel.c and the platform, so a
+    binary built from other source (or copied from elsewhere) is never
+    loaded in its place."""
+    a = native.library_path()
+    assert os.path.basename(a).startswith("_voxel_native-")
+    fake = tmp_path / "voxel.c"
+    fake.write_text("/* other source */\n")
+    monkeypatch.setattr(native, "_SRC", str(fake))
+    assert native.library_path() != a

@@ -191,49 +191,6 @@ def test_scan_to_map_streaming_matches_fused():
     )
 
 
-def test_scan_to_map_fused_loop_backend_matches_steps():
-    """icp.loop_backend="fused" (whole-loop Pallas ICP, interpret mode on
-    CPU) must track the same trajectory as the per-iteration steps path.
-    The two optimize in different parameterizations (the fused kernel
-    recenters on the model bbox — see icp_fused_pallas), so poses agree at
-    convergence, not bit-exactly."""
-    from tpu_icp_slam.core.pointcloud import voxel_downsample_np
-    from tpu_icp_slam.eval import metrics as em
-    from tpu_icp_slam.slam.scan_to_map import ScanToMapPipeline
-
-    scans, gt = synthetic.velodyne_log(
-        n_frames=10, n_rings=12, n_azimuth=200, path_fraction=0.15
-    )
-    scans = [voxel_downsample_np(s, 0.5) for s in scans]
-    cfg = _s2m_cfg()
-    cfg = dataclasses.replace(
-        cfg,
-        pipeline=dataclasses.replace(cfg.pipeline, scan_capacity=1024),
-        mapping=dataclasses.replace(cfg.mapping, local_model_size=2048),
-    )
-    pts, msk = pad_scans(scans, cfg.pipeline.scan_capacity)
-
-    def run(cfg):
-        pipe = ScanToMapPipeline(cfg)
-        state = pipe.init_state(pts[0], msk[0])
-        _, infos = pipe.run_fused(state, pts[1:], msk[1:])
-        return np.concatenate([np.eye(4)[None], np.asarray(infos["pose"])])
-
-    poses_steps = run(cfg)
-    cfg_f = dataclasses.replace(
-        cfg, icp=dataclasses.replace(cfg.icp, loop_backend="fused")
-    )
-    poses_fused = run(cfg_f)
-    gt_rel = np.einsum("ij,fjk->fik", np.linalg.inv(gt[0]), gt)
-    ate_f = em.ate_rmse(poses_fused[:, :3, 3], gt_rel[: len(poses_fused), :3, 3])
-    assert ate_f < 0.15, f"fused-loop scan-to-map ATE {ate_f}"
-    # per-frame agreement with the steps path (same gates, same solve)
-    dt = np.linalg.norm(
-        poses_fused[:, :3, 3] - poses_steps[:, :3, 3], axis=1
-    )
-    assert float(dt.max()) < 0.05, f"fused vs steps max pose gap {dt.max()}"
-
-
 def test_run_kitti_dir_end_to_end(tmp_path):
     """Drop-in format check: write a KITTI-layout dir, run SLAM via the runner."""
     from tpu_icp_slam.core.pointcloud import voxel_downsample_np

@@ -12,7 +12,8 @@ import pytest
 from tpu_icp_slam.backend import pose_graph as pg
 from tpu_icp_slam.backend import schur
 from tpu_icp_slam.dist import make_mesh
-from tests.test_pose_graph import _chain_with_loop
+# pytest's prepend import mode puts tests/ on sys.path
+from test_pose_graph import _chain_with_loop
 
 
 @pytest.fixture(scope="module")
